@@ -3,13 +3,12 @@
 // The reference implements its ingest and analyze passes in C++ with OpenMP
 // (cli/csr_mtx_reader.hpp:116-162 OMP number parsing; cli/sort_omp.hpp:12-62
 // task-parallel quicksort; csr_adaptive_plus_analyze.cpp:12-98 block analyze).
-// This library is the TPU build's equivalent: exported as a C ABI consumed via
+// This library is this package's equivalent: exported as a C ABI consumed via
 // ctypes (io/native.py), with pure-numpy fallbacks when the .so is absent.
 //
 // Build: make -C native   (g++ -O3 -march=native -fopenmp -shared -fPIC)
 
 #include <algorithm>
-#include <atomic>
 #include <cctype>
 #include <cstdint>
 #include <cstdlib>
@@ -125,290 +124,6 @@ int32_t coo_to_csr(const int32_t* rows, const int32_t* cols, const double* vals,
 }
 
 // ---------------------------------------------------------------------------
-// Tile-plan analyze (csr_adaptive_plus_analyze.cpp:12-98 analog): for the
-// (128-row x 128-col)-window decomposition, compute for every element its
-// block id and slot, and per-block max depth.  Single O(nnz) scan per row.
-// Outputs:
-//   elem_block: (nnz) int64 block key rb*nct + ct
-//   elem_slot:  (nnz) int32 position within its (row, window) run
-//   n_blocks:   number of distinct blocks (return value)
-//   block_keys: (<= nnz) int64 sorted distinct block keys
-//   block_depth:(<= nnz) int32 max run length per block
-// ---------------------------------------------------------------------------
-int64_t tile_analyze(const int32_t* row_ptr, const int32_t* col_idx, int32_t m,
-                     int32_t nct, int64_t* elem_block, int32_t* elem_slot,
-                     int64_t* block_keys, int32_t* block_depth) {
-  // pass 1: per-element block + slot (rows are col-sorted so runs are contiguous)
-  for (int32_t r = 0; r < m; ++r) {
-    int64_t rb = r >> 7;
-    int32_t prev_ct = -1, slot = 0;
-    for (int32_t p = row_ptr[r]; p < row_ptr[r + 1]; ++p) {
-      int32_t ct = col_idx[p] >> 7;
-      slot = (ct == prev_ct) ? slot + 1 : 0;
-      prev_ct = ct;
-      elem_block[p] = rb * nct + ct;
-      elem_slot[p] = slot;
-    }
-  }
-  int64_t nnz = row_ptr[m];
-  if (nnz == 0) return 0;
-  // pass 2: distinct blocks + max depth.  Blocks are NOT globally sorted in
-  // element order (rows interleave windows), so sort a copy of the keys with the
-  // depth (slot+1) attached.
-  std::vector<std::pair<int64_t, int32_t>> kv(nnz);
-  for (int64_t i = 0; i < nnz; ++i) kv[i] = {elem_block[i], elem_slot[i] + 1};
-  std::sort(kv.begin(), kv.end());
-  int64_t nb = 0;
-  for (int64_t i = 0; i < nnz; ++i) {
-    if (nb == 0 || kv[i].first != block_keys[nb - 1]) {
-      block_keys[nb] = kv[i].first;
-      block_depth[nb] = kv[i].second;
-      ++nb;
-    } else if (kv[i].second > block_depth[nb - 1]) {
-      block_depth[nb - 1] = kv[i].second;
-    }
-  }
-  return nb;
-}
-
-// ---------------------------------------------------------------------------
-// Swell analyze (the flagship kernel's host pre-pass; csr_adaptive_plus_
-// analyze.cpp:12-98 analog, OpenMP over 128-row blocks).  For every nnz:
-//   - greedy unaligned-window clustering per block (window opens at the first
-//     uncovered column c, claims cols < 128*(c>>7) + {256|128 at chunk edge})
-//   - instance slot within (row, instance), split at slot 128
-//   - binary layer decomposition of each group's max count -> slab + layer k
-// Outputs per nnz: slab id, in-window index (u8), slot within slab (u8),
-// layer k (i8).  Per slab: row-block, window base, k, wide flag.
-// Returns nslabs, or -1 if slab_cap is exceeded.
-// ---------------------------------------------------------------------------
-int64_t swell_analyze(const int64_t* rp, const int32_t* ci, int64_t m,
-                      int32_t delta, int32_t* slab_of_nnz, uint8_t* lidx,
-                      uint8_t* slot_in_slab, int8_t* layer_k, int64_t slab_cap,
-                      int32_t* slab_rb, int32_t* slab_w, int8_t* slab_k,
-                      uint8_t* slab_wide, int32_t num_threads) {
-  const int64_t nblocks = (m + 127) >> 7;
-  struct SlabRec {
-    int32_t w;
-    int8_t k;
-    uint8_t wide;
-  };
-  std::vector<int64_t> blk_nslabs(nblocks, 0);
-  // phase A: per-block analysis; per-nnz outputs written directly with LOCAL
-  // slab ids; slab records go to per-block vectors.
-  std::vector<std::vector<SlabRec>> blk_slabs(nblocks);
-  (void)num_threads;
-  // set when a (row, window) holds >256 nnz — only possible with duplicate
-  // columns in a row, which the slot/half encodings cannot represent (slot
-  // would exceed 255 and gid2 = inst*2+half would alias the next instance).
-  // Callers fall back to a path that validates input.
-  std::atomic<int32_t> dup_overflow{0};
-#if defined(_OPENMP)
-#pragma omp parallel
-#endif
-  {
-    std::vector<int64_t> order;      // block nnz sorted by shifted col
-    std::vector<int32_t> colb;       // shifted col per block nnz
-    std::vector<uint8_t> laneb;      // lane per block nnz
-    std::vector<int64_t> gidx;       // global nnz index per block nnz
-    std::vector<uint16_t> cnt(128);  // per-instance per-lane counts (<= 256)
-    // per-(gid2) records for the block
-    std::vector<int32_t> g_w;        // window base per gid2/2
-    std::vector<int32_t> g_maxc;     // max count per gid2
-    std::vector<uint8_t> g_wide;
-    std::vector<int32_t> g_slabbase; // first local slab id per gid2
-#if defined(_OPENMP)
-#pragma omp for schedule(dynamic, 8)
-#endif
-    for (int64_t b = 0; b < nblocks; ++b) {
-      const int64_t r0 = b << 7;
-      const int64_t r1 = std::min<int64_t>(m, r0 + 128);
-      const int64_t p0 = rp[r0], p1 = rp[r1];
-      const int64_t bn = p1 - p0;
-      if (bn == 0) continue;
-      colb.resize(bn);
-      laneb.resize(bn);
-      gidx.resize(bn);
-      order.resize(bn);
-      int64_t q = 0;
-      for (int64_t r = r0; r < r1; ++r) {
-        const uint8_t lane = (uint8_t)(r & 127);
-        for (int64_t p = rp[r]; p < rp[r + 1]; ++p, ++q) {
-          colb[q] = ci[p] + delta;
-          laneb[q] = lane;
-          gidx[q] = p;
-        }
-      }
-      for (int64_t i = 0; i < bn; ++i) order[i] = i;
-      std::sort(order.begin(), order.end(),
-                [&](int64_t a, int64_t c) { return colb[a] < colb[c]; });
-      // greedy instances over sorted cols; per-nnz slot via lane counts
-      g_w.clear();
-      g_maxc.clear();
-      g_wide.clear();
-      int64_t i = 0;
-      // scratch per-nnz gid2+slot, stored via slot_in_slab/lidx now and
-      // slab ids resolved after maxc is known (second walk over `order`)
-      std::vector<int32_t> nz_gid2(bn);
-      while (i < bn) {
-        const int32_t c0 = colb[order[i]];
-        const int32_t w = c0 >> 7;
-        const int32_t width = ((w & 127) == 127) ? 128 : 256;
-        const int32_t bound = (w << 7) + width;
-        const int32_t inst = (int32_t)(g_w.size());
-        g_w.push_back(w);
-        g_maxc.push_back(0);
-        g_maxc.push_back(0);  // two gid2 per instance (slot halves)
-        g_wide.push_back(0);
-        g_wide.push_back(0);
-        memset(cnt.data(), 0, 128 * sizeof(uint16_t));
-        int32_t mc0 = 0, mc1 = 0;
-        uint8_t wd = 0;
-        for (; i < bn && colb[order[i]] < bound; ++i) {
-          const int64_t j = order[i];
-          const int32_t slot = cnt[laneb[j]]++;  // <= 255 iff cols unique per row
-          if (slot > 255) {
-            dup_overflow.store(1, std::memory_order_relaxed);
-            continue;  // keep scanning so the loop terminates cleanly
-          }
-          const int32_t half = slot >> 7;
-          const int32_t s7 = slot & 127;
-          nz_gid2[j] = inst * 2 + half;
-          slot_in_slab[gidx[j]] = (uint8_t)s7;  // temp: slot within gid2
-          const int32_t lx = colb[j] - (w << 7);
-          lidx[gidx[j]] = (uint8_t)lx;
-          if (lx >= 128) wd = 1;
-          if (half == 0) { if (s7 + 1 > mc0) mc0 = s7 + 1; }
-          else { if (s7 + 1 > mc1) mc1 = s7 + 1; }
-        }
-        g_maxc[2 * inst] = mc0;
-        g_maxc[2 * inst + 1] = mc1;
-        g_wide[2 * inst] = wd;
-        g_wide[2 * inst + 1] = wd;
-      }
-      // slab enumeration per gid2 (binary decomposition of maxc)
-      const int64_t ng = (int64_t)g_maxc.size();
-      g_slabbase.assign(ng, 0);
-      auto& out = blk_slabs[b];
-      out.clear();
-      for (int64_t g = 0; g < ng; ++g) {
-        g_slabbase[g] = (int32_t)out.size();
-        const int32_t maxc = g_maxc[g];
-        for (int32_t k = 7; k >= 0; --k)
-          if ((maxc >> k) & 1)
-            out.push_back({g_w[g >> 1], (int8_t)k, g_wide[g]});
-      }
-      blk_nslabs[b] = (int64_t)out.size();
-      // resolve per-nnz slab id (local) + layer k + slot within slab
-      for (int64_t j = 0; j < bn; ++j) {
-        const int32_t g = nz_gid2[j];
-        const int32_t maxc = g_maxc[g];
-        const int32_t slot = slot_in_slab[gidx[j]];
-        int32_t kk = 7, nth = 0, pref = 0;
-        for (; kk >= 0; --kk) {
-          if (((maxc >> kk) & 1) == 0) continue;
-          if (slot < pref + (1 << kk)) break;
-          pref += 1 << kk;
-          ++nth;
-        }
-        layer_k[gidx[j]] = (int8_t)kk;
-        slot_in_slab[gidx[j]] = (uint8_t)(slot - pref);
-        slab_of_nnz[gidx[j]] = g_slabbase[g] + nth;  // local; fixed up in phase B
-      }
-    }
-  }
-  if (dup_overflow.load()) return -1;
-  // phase B: prefix over blocks, copy slab records, fix up per-nnz slab ids
-  std::vector<int64_t> base(nblocks + 1, 0);
-  for (int64_t b = 0; b < nblocks; ++b) base[b + 1] = base[b] + blk_nslabs[b];
-  const int64_t nslabs = base[nblocks];
-  if (nslabs > slab_cap) return -1;
-#if defined(_OPENMP)
-#pragma omp parallel for schedule(dynamic, 8)
-#endif
-  for (int64_t b = 0; b < nblocks; ++b) {
-    const int64_t off = base[b];
-    const auto& out = blk_slabs[b];
-    for (size_t s = 0; s < out.size(); ++s) {
-      slab_rb[off + s] = (int32_t)b;
-      slab_w[off + s] = out[s].w;
-      slab_k[off + s] = out[s].k;
-      slab_wide[off + s] = out[s].wide;
-    }
-    const int64_t r0 = b << 7;
-    const int64_t r1 = std::min<int64_t>(m, r0 + 128);
-    for (int64_t p = rp[r0]; p < rp[r1]; ++p) slab_of_nnz[p] += (int32_t)off;
-  }
-  return nslabs;
-}
-
-// ---------------------------------------------------------------------------
-// Aligned r x r micro-block (BSR) condense for the swell BSR path: node-row-
-// parallel r-way merge of the r sorted CSR rows of each node.  Two-phase:
-// bsr_count fills rpb with the exclusive prefix of per-node distinct block-col
-// counts (returns nnzb), bsr_fill writes block cols + r*r cell values per block
-// (vals2d pre-zeroed by the caller; absent cells stay 0, numerically free).
-// ---------------------------------------------------------------------------
-int64_t bsr_count(const int64_t* rp, const int32_t* ci, int64_t m, int32_t r,
-                  int64_t mb, int64_t* rpb) {
-  if (r < 2 || r > 16) return -1;
-#if defined(_OPENMP)
-#pragma omp parallel for schedule(dynamic, 64)
-#endif
-  for (int64_t b = 0; b < mb; ++b) {
-    const int64_t r0 = b * r, r1 = std::min<int64_t>(m, r0 + r);
-    const int nr = (int)(r1 - r0);
-    int64_t p[16];
-    for (int k = 0; k < nr; ++k) p[k] = rp[r0 + k];
-    int64_t cnt = 0;
-    for (;;) {
-      int64_t mn = INT64_MAX;
-      for (int k = 0; k < nr; ++k)
-        if (p[k] < rp[r0 + k + 1]) mn = std::min<int64_t>(mn, ci[p[k]] / r);
-      if (mn == INT64_MAX) break;
-      ++cnt;
-      for (int k = 0; k < nr; ++k)
-        while (p[k] < rp[r0 + k + 1] && ci[p[k]] / r == mn) ++p[k];
-    }
-    rpb[b + 1] = cnt;
-  }
-  rpb[0] = 0;
-  for (int64_t b = 0; b < mb; ++b) rpb[b + 1] += rpb[b];
-  return rpb[mb];
-}
-
-int32_t bsr_fill(const int64_t* rp, const int32_t* ci, const double* v,
-                 int64_t m, int32_t r, int64_t mb, const int64_t* rpb,
-                 int64_t* cib, double* vals2d) {
-  if (r < 2 || r > 16) return -1;
-#if defined(_OPENMP)
-#pragma omp parallel for schedule(dynamic, 64)
-#endif
-  for (int64_t b = 0; b < mb; ++b) {
-    const int64_t r0 = b * r, r1 = std::min<int64_t>(m, r0 + r);
-    const int nr = (int)(r1 - r0);
-    int64_t p[16];
-    for (int k = 0; k < nr; ++k) p[k] = rp[r0 + k];
-    int64_t out = rpb[b];
-    for (;;) {
-      int64_t mn = INT64_MAX;
-      for (int k = 0; k < nr; ++k)
-        if (p[k] < rp[r0 + k + 1]) mn = std::min<int64_t>(mn, ci[p[k]] / r);
-      if (mn == INT64_MAX) break;
-      cib[out] = mn;
-      double* cell = vals2d + out * (int64_t)r * r;
-      for (int k = 0; k < nr; ++k)
-        while (p[k] < rp[r0 + k + 1] && ci[p[k]] / r == mn) {
-          cell[k * r + (ci[p[k]] % r)] = v[p[k]];
-          ++p[k];
-        }
-      ++out;
-    }
-  }
-  return 0;
-}
-
-// ---------------------------------------------------------------------------
 // ILU(0) factorization — in-pattern incomplete LU, classic IKJ with a sorted
 // two-pointer row merge (columns are sorted per CSR row, so the "U(k, j) for j
 // in row i's pattern" intersection is a linear merge instead of a hash probe).
@@ -481,6 +196,6 @@ int64_t trisolve_levels(const int64_t* rp, const int32_t* ci, int64_t m,
 }
 
 // Version marker for the ctypes loader.
-int32_t spmv_native_abi_version() { return 5; }
+int32_t spmv_native_abi_version() { return 6; }
 
 }  // extern "C"

@@ -1,20 +1,20 @@
-"""Populate the corpus (bin2) and swell-plan disk caches CPU-side for the bench
-corpus, so a later TPU `bench.py` run pays seconds (cache load) instead of
-~1min/matrix (generate + plan build).  Safe to run concurrently with TPU
-measurement: pure CPU (JAX_PLATFORMS=cpu) and the plan-cache writes are atomic
-(tmp+rename).  Usage: python scripts/populate_caches.py [names...]
+"""Populate the corpus disk cache (bin2 stand-ins of the bench matrices) on the
+CPU, so a later `bench.py` run loads each matrix in seconds instead of
+generating it.  Safe to run beside a GPU run: it never opens the GPU
+(JAX_PLATFORMS=cpu) and cache writes are atomic (tmp+rename).
+
+Usage: JAX_PLATFORMS=cpu python scripts/populate_caches.py [names...]
 """
 import os
 import sys
 import time
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
-os.environ["SPMV_TPU_PLAN_CACHE"] = "1"  # force disk cache despite CPU backend
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 
-jax.config.update("jax_enable_x64", True)  # CSR holds jnp arrays; without x64 values silently downcast to f32
+jax.config.update("jax_enable_x64", True)  # CSR holds jnp arrays; without x64 values downcast to f32
 import numpy as np  # noqa: E402
 
 DEFAULT = [
@@ -25,17 +25,10 @@ DEFAULT = [
 ]
 
 if __name__ == "__main__":
-    names = sys.argv[1:] or DEFAULT
     from spmv_acc_tpu.formats.generate import example_like
-    from spmv_acc_tpu.ops.swell import _SWELL_CACHE, get_swell_plan
 
-    for name in names:
+    for name in sys.argv[1:] or DEFAULT:
         t0 = time.perf_counter()
         csr = example_like(name, dtype=np.float64)
-        t1 = time.perf_counter()
-        dp = get_swell_plan(csr, np.float64)
-        t2 = time.perf_counter()
-        print(f"{name}: gen {t1 - t0:.1f}s plan {t2 - t1:.1f}s r={dp.r} "
-              f"steps={dp.plan.total_steps} fill={dp.plan.fill_efficiency:.3f}",
-              flush=True)
-        _SWELL_CACHE.clear()
+        print(f"{name}: rows={csr.rows} nnz={csr.nnz} gen+cache "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)

@@ -1,4 +1,4 @@
-"""spmv_acc_tpu — a TPU-native sparse linear-algebra framework.
+"""spmv_acc_tpu — a JAX sparse linear-algebra framework for the GPU.
 
 Brand-new JAX/XLA/Pallas implementation with the capabilities of hpcde/spmv-acc
 (HPDC'23 "Efficient Algorithm Design of Optimizing SpMV on GPU"): CSR/COO/BSR/ELL

@@ -17,6 +17,7 @@ import time
 
 import numpy as np
 
+from ..config import setup_compile_cache
 from ..formats.containers import CSR
 from ..io import load_matrix
 
@@ -24,7 +25,7 @@ from ..io import load_matrix
 def build_parser():
     p = argparse.ArgumentParser(
         prog="spmv-solve",
-        description="Preconditioned CG driven by the TPU SpMV strategies",
+        description="Preconditioned CG driven by the SpMV strategies",
     )
     p.add_argument("file", help="path of input matrix file")
     p.add_argument("-f", "--format", default="csr", choices=["csr", "mtx", "bin2"])
@@ -62,6 +63,7 @@ def main(argv=None) -> int:
 
     args = build_parser().parse_args(argv)
     jax.config.update("jax_enable_x64", True)
+    setup_compile_cache()
     import jax.numpy as jnp
 
     from ..models.cg import cg_solve, jacobi_preconditioner

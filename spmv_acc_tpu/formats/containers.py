@@ -1,6 +1,6 @@
 """Sparse-matrix containers as registered JAX pytrees.
 
-TPU-native re-imagination of the reference's ``csr_desc<I,T>`` / ``var_csr_desc<I,T>``
+A re-imagination of the reference's ``csr_desc<I,T>`` / ``var_csr_desc<I,T>``
 (reference ``src/acc/api/types.h:8-41``): instead of raw device pointers we carry JAX
 arrays inside immutable dataclasses whose *shape* is static aux-data, so they can flow
 through ``jit`` / ``shard_map`` boundaries and be donated/sharded like any other pytree.
@@ -8,9 +8,9 @@ through ``jit`` / ``shard_map`` boundaries and be donated/sharded like any other
 Containers:
   * :class:`CSR`  — compressed sparse row; the main format (types.h:12-27).
   * :class:`COO`  — coordinate triplets; ingest format (cli/sparse_format.h:84-98).
-  * :class:`BSR`  — block CSR with dense ``(bh, bw)`` blocks; feeds the MXU (new scope).
-  * :class:`ELL`  — row-padded format used by the vector-row Pallas strategy (new scope;
-    the analog of the reference's per-vector row processing, hip-vector-row/).
+  * :class:`BSR`  — block CSR with dense ``(bh, bw)`` blocks (new scope).
+  * :class:`ELL`  — row-padded format used by the ``ell`` strategy and ELL SpMM (new
+    scope; the analog of the reference's per-vector row processing, hip-vector-row/).
 """
 
 from __future__ import annotations
@@ -142,8 +142,8 @@ class COO:
 class BSR:
     """Block-CSR with dense ``(bh, bw)`` blocks stored as ``values[nblocks, bh, bw]``.
 
-    New scope relative to the reference (which is scalar CSR only): dense blocks map
-    directly onto MXU tiles for SpMV/SpMM.
+    New scope relative to the reference (which is scalar CSR only): dense blocks become
+    small dense products for SpMV/SpMM.
     """
 
     row_ptr: jax.Array  # (mb + 1,) int32 — block-row pointer

@@ -94,7 +94,7 @@ def csr_to_ell_arrays(row_ptr, col_idx, values, shape, width_multiple=8, sublane
     """Pad each row to a uniform width (multiple of ``width_multiple``) and pad rows
     to a multiple of ``sublanes``.  Pad cols point at column 0 with value 0.
 
-    This is the TPU analog of assigning one fixed-size vector per row
+    This is the padded analog of assigning one fixed-size vector per row
     (hip-vector-row/vector_row.cpp:15-27): the pad width plays the vector-size role.
     Returns (ell_cols, ell_vals, width, padded_rows).
     """

@@ -285,12 +285,12 @@ def example_like(name: str, seed: int = 7, dtype=np.float64, cache: bool = True)
     Generation at 40-80M nnz costs tens of seconds of repeated dedup sorts, so
     results are cached on disk in the byte-compatible bin2 format (f64 values —
     exact roundtrip; an f32 read casts identically to generating at f32).  Cache
-    dir: $SPMV_TPU_CORPUS_CACHE (default /tmp/spmv_corpus); ``cache=False`` or
-    SPMV_TPU_NO_CORPUS_CACHE=1 regenerates.
+    dir: $SPMV_CORPUS_CACHE (default ``.cache/corpus`` of the checkout);
+    ``cache=False`` or SPMV_NO_CORPUS_CACHE=1 regenerates.
     """
     import os
 
-    cache = cache and not os.environ.get("SPMV_TPU_NO_CORPUS_CACHE")
+    cache = cache and not os.environ.get("SPMV_NO_CORPUS_CACHE")
     path = None
     if cache:
         from ..config import cache_dir

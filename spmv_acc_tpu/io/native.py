@@ -3,7 +3,7 @@ transparent numpy fallbacks.
 
 The reference keeps its ingest/analyze hot loops in C++ (OpenMP parse,
 cli/csr_mtx_reader.hpp:116-162; sort, cli/sort_omp.hpp; analyze,
-csr_adaptive_plus_analyze.cpp); this module is the TPU build's equivalent.  The
+csr_adaptive_plus_analyze.cpp); this module is this package's equivalent.  The
 shared library is built lazily (``make -C native``) on first use; absence of a
 compiler degrades to the numpy paths without functional loss.
 """
@@ -17,8 +17,7 @@ import threading
 
 import numpy as np
 
-__all__ = ["get_lib", "parse_doubles", "coo_to_csr_native", "tile_analyze_native",
-           "swell_analyze_native", "bsr_condense_native", "ilu0_factor_native",
+__all__ = ["get_lib", "parse_doubles", "coo_to_csr_native", "ilu0_factor_native",
            "trisolve_levels_native", "available"]
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "native")
@@ -28,7 +27,7 @@ _lib = None
 _tried = False
 
 
-_ABI_VERSION = 5
+_ABI_VERSION = 6
 
 
 def _build(force: bool = False) -> bool:
@@ -86,10 +85,6 @@ def get_lib():
                 ctypes.c_int32,
             ]
             lib.coo_to_csr.restype = ctypes.c_int32
-            lib.tile_analyze.restype = ctypes.c_int64
-            lib.swell_analyze.restype = ctypes.c_int64
-            lib.bsr_count.restype = ctypes.c_int64
-            lib.bsr_fill.restype = ctypes.c_int32
             lib.ilu0_factor.restype = ctypes.c_int64
             lib.trisolve_levels.restype = ctypes.c_int64
             _lib = lib
@@ -146,117 +141,6 @@ def coo_to_csr_native(rows, cols, vals, m):
     if rc != 0:
         return None
     return row_ptr, out_cols, out_vals
-
-
-def tile_analyze_native(row_ptr, col_idx, m, nct):
-    """Returns (elem_block i64, elem_slot i32, block_keys i64, block_depth i32)."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    row_ptr = np.ascontiguousarray(row_ptr, dtype=np.int32)
-    col_idx = np.ascontiguousarray(col_idx, dtype=np.int32)
-    nnz = int(row_ptr[-1])
-    elem_block = np.empty(nnz, dtype=np.int64)
-    elem_slot = np.empty(nnz, dtype=np.int32)
-    block_keys = np.empty(max(nnz, 1), dtype=np.int64)
-    block_depth = np.empty(max(nnz, 1), dtype=np.int32)
-    nb = lib.tile_analyze(
-        row_ptr.ctypes.data_as(ctypes.c_void_p),
-        col_idx.ctypes.data_as(ctypes.c_void_p),
-        ctypes.c_int32(m),
-        ctypes.c_int32(nct),
-        elem_block.ctypes.data_as(ctypes.c_void_p),
-        elem_slot.ctypes.data_as(ctypes.c_void_p),
-        block_keys.ctypes.data_as(ctypes.c_void_p),
-        block_depth.ctypes.data_as(ctypes.c_void_p),
-    )
-    return elem_block, elem_slot, block_keys[:nb], block_depth[:nb]
-
-
-def swell_analyze_native(row_ptr, col_idx, m, delta):
-    """Native swell analyze pass (OpenMP over row-blocks).
-
-    Returns (slab_of_nnz i32, lidx u8, slot_in_slab u8, layer_k i8,
-             slab_rb i32, slab_w i32, slab_k i8, slab_wide bool) or None.
-    """
-    lib = get_lib()
-    if lib is None:
-        return None
-    rp = np.ascontiguousarray(row_ptr, dtype=np.int64)
-    ci = np.ascontiguousarray(col_idx, dtype=np.int32)
-    nnz = int(rp[-1])
-    if nnz == 0 or nnz >= 2**31:
-        return None
-    slab_of_nnz = np.empty(nnz, dtype=np.int32)
-    lidx = np.empty(nnz, dtype=np.uint8)
-    slot = np.empty(nnz, dtype=np.uint8)
-    layer_k = np.empty(nnz, dtype=np.int8)
-    cap = nnz
-    slab_rb = np.empty(cap, dtype=np.int32)
-    slab_w = np.empty(cap, dtype=np.int32)
-    slab_k = np.empty(cap, dtype=np.int8)
-    slab_wide = np.empty(cap, dtype=np.uint8)
-    ns = lib.swell_analyze(
-        rp.ctypes.data_as(ctypes.c_void_p),
-        ci.ctypes.data_as(ctypes.c_void_p),
-        ctypes.c_int64(m),
-        ctypes.c_int32(delta),
-        slab_of_nnz.ctypes.data_as(ctypes.c_void_p),
-        lidx.ctypes.data_as(ctypes.c_void_p),
-        slot.ctypes.data_as(ctypes.c_void_p),
-        layer_k.ctypes.data_as(ctypes.c_void_p),
-        ctypes.c_int64(cap),
-        slab_rb.ctypes.data_as(ctypes.c_void_p),
-        slab_w.ctypes.data_as(ctypes.c_void_p),
-        slab_k.ctypes.data_as(ctypes.c_void_p),
-        slab_wide.ctypes.data_as(ctypes.c_void_p),
-        ctypes.c_int32(min(os.cpu_count() or 1, 16)),
-    )
-    if ns < 0:
-        return None
-    return (slab_of_nnz, lidx, slot, layer_k,
-            slab_rb[:ns].copy(), slab_w[:ns].copy(), slab_k[:ns].copy(),
-            slab_wide[:ns].astype(bool))
-
-
-def bsr_condense_native(rp, ci, v, m, r, mb):
-    """Native r x r block condense (node-row-parallel r-way merge).
-
-    Returns (rp_b int64 (mb+1,), ci_b int64, vals2d (nnzb, r*r) f64) or None.
-    """
-    lib = get_lib()
-    if lib is None or np.dtype(v.dtype) != np.float64 or not (2 <= r <= 16):
-        return None
-    rp = np.ascontiguousarray(rp, dtype=np.int64)
-    ci = np.ascontiguousarray(ci, dtype=np.int32)
-    v = np.ascontiguousarray(v, dtype=np.float64)
-    rpb = np.zeros(mb + 1, dtype=np.int64)
-    nnzb = lib.bsr_count(
-        rp.ctypes.data_as(ctypes.c_void_p),
-        ci.ctypes.data_as(ctypes.c_void_p),
-        ctypes.c_int64(m),
-        ctypes.c_int32(r),
-        ctypes.c_int64(mb),
-        rpb.ctypes.data_as(ctypes.c_void_p),
-    )
-    if nnzb < 0:
-        return None
-    cib = np.empty(nnzb, dtype=np.int64)
-    vals2d = np.zeros((nnzb, r * r), dtype=np.float64)
-    rc = lib.bsr_fill(
-        rp.ctypes.data_as(ctypes.c_void_p),
-        ci.ctypes.data_as(ctypes.c_void_p),
-        v.ctypes.data_as(ctypes.c_void_p),
-        ctypes.c_int64(m),
-        ctypes.c_int32(r),
-        ctypes.c_int64(mb),
-        rpb.ctypes.data_as(ctypes.c_void_p),
-        cib.ctypes.data_as(ctypes.c_void_p),
-        vals2d.ctypes.data_as(ctypes.c_void_p),
-    )
-    if rc != 0:
-        return None
-    return rpb, cib, vals2d
 
 
 def ilu0_factor_native(rp, ci, values, m):

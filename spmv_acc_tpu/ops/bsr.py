@@ -1,9 +1,9 @@
-"""BSR (block-CSR) SpMV/SpMM — dense (bh, bw) blocks feeding the MXU.
+"""BSR (block-CSR) SpMV/SpMM — dense (bh, bw) blocks as small dense products.
 
-New scope vs the scalar-CSR reference: on TPU, sparse structure at block granularity
-turns every stored block into a dense tile op, which is exactly what the MXU wants.
-The gather of x happens at block granularity (contiguous bw-wide slices), so it is a
-*vectorised* gather — far friendlier to HBM than scalar CSR gathers.
+New scope vs the scalar-CSR reference: sparse structure at block granularity turns
+every stored block into a dense tile op.  The gather of x happens at block
+granularity (contiguous bw-wide slices), so it is a *vectorised* gather — friendlier
+to device memory than scalar CSR gathers.
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ __all__ = ["bsr_spmv", "bsr_spmm"]
 def _bsr_spmv_core(values, col_idx, block_row_ids, x_blocks, block_rows):
     # values: (nblocks, bh, bw); x_blocks: (nb, bw)
     xb = x_blocks[col_idx]  # (nblocks, bw)
-    prod = jnp.einsum("nij,nj->ni", values, xb, preferred_element_type=values.dtype)
+    prod = jnp.einsum("nij,nj->ni", values, xb, preferred_element_type=values.dtype,
+                      precision=jax.lax.Precision.HIGHEST)
     out = jax.ops.segment_sum(
         prod, block_row_ids, num_segments=block_rows, indices_are_sorted=True
     )  # (mb, bh)
@@ -52,9 +53,10 @@ def bsr_spmv(bsr: BSR, x, y=None, alpha=1.0, beta=0.0):
 
 @functools.partial(jax.jit, static_argnames=("block_rows",))
 def _bsr_spmm_core(values, col_idx, block_row_ids, X_blocks, block_rows):
-    # X_blocks: (nb, bw, k); batched MXU matmuls per stored block
+    # X_blocks: (nb, bw, k); one batched matmul over the stored blocks
     xb = X_blocks[col_idx]  # (nblocks, bw, k)
-    prod = jnp.einsum("nij,njk->nik", values, xb, preferred_element_type=values.dtype)
+    prod = jnp.einsum("nij,njk->nik", values, xb, preferred_element_type=values.dtype,
+                      precision=jax.lax.Precision.HIGHEST)
     out = jax.ops.segment_sum(
         prod, block_row_ids, num_segments=block_rows, indices_are_sorted=True
     )  # (mb, bh, k)

@@ -1,16 +1,14 @@
 """Double-float ("df64") arithmetic: float64-accurate math from float32 pairs.
 
-TPU v5e has no native f64 ALU — XLA emulates double precision at ~1000x slowdown
-(measured: ~45 ns/nnz for emulated-f64 SpMV vs ~0.04 ns/nnz streaming f32).  The
-TPU-native answer is compensated arithmetic: every f64 value is carried as an
-unevaluated pair ``(hi, lo)`` of f32 with ``hi + lo == value`` to ~2^-48 relative
-accuracy (~3.6e-15) — far inside the reference's rel-1e-7 verification gate
+For hardware without a fast f64 path, compensated arithmetic carries every f64
+value as an unevaluated pair ``(hi, lo)`` of f32 with ``hi + lo == value`` to
+~2^-48 relative accuracy (~3.6e-15) — far inside the reference's rel-1e-7 verification gate
 (cli/verification.cpp:43-54).
 
 All operations are classic error-free transformations (Dekker 1971, Knuth TAOCP v2):
 ``two_sum``, ``split``/``two_prod`` (FMA-free Dekker product), plus df64 add/mul and
 a compensated accumulate used by the SpMV width-fold.  Everything is elementwise f32
-→ VPU-friendly and fully fusable by XLA.
+→ fully fusable by XLA.  Nothing on the main path uses this module.
 
 NOTE: correctness depends on XLA *not* reassociating float ops.  XLA's algebraic
 simplifier preserves IEEE semantics for f32 adds/muls by default; the unit tests

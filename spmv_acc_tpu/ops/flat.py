@@ -1,8 +1,8 @@
-"""Flat strategy: pure nnz-splitting — the TPU analog of hip-flat (the HPDC'23
+"""Flat strategy: pure nnz-splitting — the XLA analog of hip-flat (the HPDC'23
 paper's first algorithm, flat_imp.inl / flat_reduce.hpp).
 
 The GPU version assigns each block a fixed nnz chunk, stages products in LDS, and
-resolves rows crossing chunk borders with atomicAdd (flat_reduce.hpp:65-156).  On TPU
+resolves rows crossing chunk borders with atomicAdd (flat_reduce.hpp:65-156).  Here
 the same decomposition maps to a chunked computation where cross-chunk accumulation
 is deterministic:
 
@@ -15,7 +15,7 @@ is deterministic:
      atomics, expressed as one segment_sum over static shapes.
 
 For matrices whose chunks span few rows (avg nnz/row ≥ chunk/rows ratio) this keeps
-every intermediate in registers/VMEM-sized tiles; when a single chunk can span many
+every intermediate in small tiles; when a single chunk can span many
 rows the plan falls back to the direct segment-sum formulation (equivalent math,
 ``jax.ops.segment_sum`` with sorted indices).
 """

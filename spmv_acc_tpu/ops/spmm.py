@@ -1,6 +1,5 @@
 """CSR SpMM (multi-RHS) — new scope vs the reference (SpMV-only), per BASELINE.json
-config 4: the x-gather amortises across RHS columns and the width-contraction runs on
-the MXU.
+config 4: each gathered row index serves all k RHS columns.
 
 Strategies:
   * ``spmm_segment`` — gather rows of X per nnz, segment-sum (irregular matrices).
@@ -17,7 +16,7 @@ import jax.numpy as jnp
 
 from .xla import axpby_finish, spmm_ell
 
-__all__ = ["spmm_segment", "spmm_ell", "spmm_swell", "spmm"]
+__all__ = ["spmm_segment", "spmm_ell", "spmm"]
 
 
 @functools.partial(jax.jit, static_argnames=("num_rows",))
@@ -28,36 +27,6 @@ def _spmm_segment_core(values, col_idx, row_ids, X, num_rows):
 
 def spmm_segment(alpha, beta, csr, X, Y, plan):
     ax = _spmm_segment_core(csr.values, csr.col_idx, plan.row_ids[: csr.nnz], X, csr.rows)
-    return axpby_finish(alpha, beta, ax, Y)
-
-
-def spmm_swell(alpha, beta, csr, X, Y):
-    """Multi-RHS SpMM through the swell Pallas kernels: each packed grid step
-    reads its values+index buffer ONCE and serves a GROUP of RHS columns (one
-    table build / gather / fold per column off the shared one-hot and lidx), so
-    the dominant SpMV DMA bytes amortize across columns — the reason SpMM exists
-    on the MXU (SURVEY §7.0; the reference is SpMV-only).  Columns run in groups
-    of g = max(1, 8 // r) (VMEM / compile-size bound, overridable via
-    SPMV_TPU_SPMM_GROUP); the last group is zero-padded so every group reuses
-    one compiled shape."""
-    import os
-
-    from .swell import _bucket_args, _interpret, _statics, _swell_amx_jit, get_swell_plan
-
-    dp = get_swell_plan(csr, csr.values.dtype)
-    interp = _interpret()
-    bargs = _bucket_args(dp, interp, amx=True)
-    statics = _statics(dp, interp)
-    k = X.shape[1]
-    g = int(os.environ.get("SPMV_TPU_SPMM_GROUP", "0")) or max(1, 8 // dp.r)
-    g = min(g, k)
-    outs = []
-    for c0 in range(0, k, g):
-        Xg = X[:, c0 : c0 + g]
-        if Xg.shape[1] < g:
-            Xg = jnp.pad(Xg, ((0, 0), (0, g - Xg.shape[1])))
-        outs.append(_swell_amx_jit(bargs, dp.tail, Xg, statics, g))
-    ax = jnp.concatenate(outs, axis=1)[: csr.rows, :k].astype(csr.values.dtype)
     return axpby_finish(alpha, beta, ax, Y)
 
 
@@ -73,17 +42,10 @@ def spmm(csr, X, Y=None, alpha=1.0, beta=0.0, strategy: str = "adaptive"):
     if strategy == "adaptive":
         s = plan.stats
         regular = s.row_len_cv < 0.5 and s.max_nnz_per_row <= 4 * max(s.avg_nnz_per_row, 1)
-        if regular:
-            strategy = "ell"
-        elif jax.default_backend() == "tpu":
-            strategy = "swell"  # XLA sparse gather is ~140ns/element on TPU
-        else:
-            strategy = "segment"
+        strategy = "ell" if regular else "segment"
     if strategy == "ell":
         ell = _get_ell(csr, plan.tune)
         return spmm_ell(alpha, beta, ell, X, Y, csr.rows)
     if strategy == "segment":
         return spmm_segment(alpha, beta, csr, X, Y, plan)
-    if strategy == "swell":
-        return spmm_swell(alpha, beta, csr, X, Y)
-    raise ValueError(f"unknown spmm strategy {strategy!r}")
+    raise ValueError(f"unknown spmm strategy {strategy!r} (one of adaptive, ell, segment)")

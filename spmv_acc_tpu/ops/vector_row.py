@@ -1,15 +1,20 @@
-"""Pallas vector-row strategy: row-tile × padded-width reduction kernel.
+"""CSR vector-row SpMV as a Pallas kernel compiled through Triton.
 
-TPU re-imagination of hip-vector-row (vector_row_native.hpp:13-58): on GPU one
-lane-vector strides one row and shuffle-reduces; on TPU one *sublane* holds one row
-of the padded ELL slab and the VPU reduces along lanes.  The x-gather happens in XLA
-(``x[ell_cols]`` — Mosaic has no arbitrary-gather primitive; XLA:TPU's native gather
-is the fastest path), and the Pallas kernel fuses multiply + width-reduction +
-alpha/beta combine in one VMEM pass, avoiding a products round-trip through HBM.
+The reference's VECTOR_ROW design (hip-vector-row/vector_row_native.hpp:13-58):
+one vector of V lanes owns one row, strides its nnz, reduces across the lanes
+and writes ``alpha*A@x + beta*y``.  Here one program owns a block of R rows and
+holds an (R, V) tile:
 
-Grid: one step per (row-tile, width-tile); width is the reduction dimension carried
-in a VMEM accumulator across sequential grid steps (TPU grids execute in order — the
-analog of the reference's cross-iteration LDS accumulation, without atomics).
+  * V is a power of two from 2 to 64, chosen from avg nnz/row with the
+    reference's thresholds (hip-vector-row/vector_row.cpp:15-27);
+  * the program walks its rows' nnz in masked chunks of V, reading
+    ``col_idx`` and ``values`` once, straight from CSR;
+  * x is gathered inside the kernel (an array-indexed load);
+  * the lane reduction and the alpha/beta combine end in one store of y.
+
+No ELL padding, row-id array or scatter is involved: the kernel moves the
+reference's 12 B/nnz (f64) plus the row pointers and the two y vectors.  f64
+runs natively; f32 accumulates in f32.
 """
 
 from __future__ import annotations
@@ -19,150 +24,81 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
+from ..config import pallas_interpret
 from .xla import axpby_finish
 
-__all__ = ["spmv_vector_row", "ell_rowsum_pallas"]
+__all__ = ["lanes_for", "spmv_vector_row", "vector_row_ax"]
 
-TILE_M = 256  # rows per grid step
-TILE_W = 512  # width elements per grid step
-
-
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
-
-
-def _rowsum_kernel(vals_ref, xg_ref, out_ref, acc_ref):
-    """One (TILE_M, TILE_W) tile: acc += sum_w vals*xg; flush on the last width step."""
-    w = pl.program_id(1)
-    nw = pl.num_programs(1)
-
-    @pl.when(w == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    prod = vals_ref[:] * xg_ref[:]
-    acc_ref[:] += jnp.sum(prod, axis=1, keepdims=True)
-
-    @pl.when(w == nw - 1)
-    def _():
-        out_ref[:] = acc_ref[:]
+# avg nnz/row thresholds -> lanes per row (hip-vector-row/vector_row.cpp:15-27)
+_LANE_THRESHOLDS = ((4, 2), (8, 4), (16, 8), (32, 16), (64, 32))
+# elements of one program's (rows, lanes) tile per loop step, with 4 warps: on
+# an H100, within 6% of the best tile on five corpus stand-ins (PERF.md)
+TILE = 256
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _ell_rowsum(ell_vals, xg, interpret=False):
-    mp, width = ell_vals.shape
-    grid = (pl.cdiv(mp, TILE_M), pl.cdiv(width, TILE_W))
+def lanes_for(avg_nnz_per_row: float) -> int:
+    for limit, lanes in _LANE_THRESHOLDS:
+        if avg_nnz_per_row <= limit:
+            return lanes
+    return 64
+
+
+def _kernel(ab_ref, row_ptr_ref, col_ref, val_ref, x_ref, y_ref, o_ref, *,
+            num_rows, block_rows, lanes):
+    rows = pl.program_id(0) * block_rows + jnp.arange(block_rows, dtype=jnp.int32)
+    row_ok = rows < num_rows
+    start = plgpu.load(row_ptr_ref.at[rows], mask=row_ok, other=0)
+    end = plgpu.load(row_ptr_ref.at[rows + 1], mask=row_ok, other=0)
+    lane = jnp.arange(lanes, dtype=jnp.int32)
+    acc_dtype = o_ref.dtype
+
+    def chunk(step, acc):
+        offs = start[:, None] + step * lanes + lane[None, :]
+        live = offs < end[:, None]
+        cols = plgpu.load(col_ref.at[offs], mask=live, other=0)
+        vals = plgpu.load(val_ref.at[offs], mask=live, other=0)
+        xs = plgpu.load(x_ref.at[cols], mask=live, other=0)
+        return acc + vals * xs
+
+    steps = (jnp.max(end - start) + (lanes - 1)) // lanes
+    acc = jax.lax.fori_loop(jnp.int32(0), steps, chunk,
+                            jnp.zeros((block_rows, lanes), acc_dtype))
+    y = plgpu.load(y_ref.at[rows], mask=row_ok, other=0)
+    out = ab_ref[0] * jnp.sum(acc, axis=1) + ab_ref[1] * y
+    plgpu.store(o_ref.at[rows], out, mask=row_ok)
+
+
+@functools.partial(jax.jit, static_argnames=("lanes", "tile", "interpret"))
+def _vector_row_call(alpha, beta, row_ptr, col_idx, values, x, y, *, lanes, tile, interpret):
+    dtype = values.dtype
+    num_rows = y.shape[0]
+    block_rows = max(1, tile // lanes)
+    ab = jnp.stack([jnp.asarray(alpha, dtype), jnp.asarray(beta, dtype)])
+    kernel = functools.partial(_kernel, num_rows=num_rows, block_rows=block_rows,
+                               lanes=lanes)
     return pl.pallas_call(
-        _rowsum_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((TILE_M, TILE_W), lambda i, w: (i, w)),
-            pl.BlockSpec((TILE_M, TILE_W), lambda i, w: (i, w)),
-        ],
-        out_specs=pl.BlockSpec((TILE_M, 1), lambda i, w: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((mp, 1), ell_vals.dtype),
-        scratch_shapes=[pltpu.VMEM((TILE_M, 1), ell_vals.dtype)],
+        kernel,
+        grid=(pl.cdiv(num_rows, block_rows),),
+        out_shape=jax.ShapeDtypeStruct((num_rows,), dtype),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
-    )(ell_vals, xg)
+        name=f"vector_row_v{lanes}_r{block_rows}",
+    )(ab, row_ptr, col_idx, values, x.astype(dtype), y.astype(dtype))
 
 
-def ell_rowsum_pallas(ell_vals, xg):
-    """(m_pad, width) → (m_pad,) row sums of vals*xg via the Pallas kernel."""
-    return _ell_rowsum(ell_vals, xg, interpret=_interpret())[:, 0]
-
-
-def _split(a):
-    """Dekker split of f32 into two 12-bit-mantissa halves."""
-    c = jnp.float32(4097.0) * a
-    hi = c - (c - a)
-    return hi, a - hi
-
-
-def _rowsum_kernel64(vh_ref, vl_ref, xh_ref, xl_ref, out_ref, acch_ref, acce_ref):
-    """Compensated two-f32 row sum (the f64-on-TPU form — Mosaic has no f64
-    ALU; same df64-lite scheme as the swell kernel, ops/swell.py): Dekker
-    two_prod per product, Knuth-2Sum contiguous-half folds along lanes, and a
-    2Sum (hi, err) accumulator across width tiles."""
-    w = pl.program_id(1)
-    nw = pl.num_programs(1)
-
-    @pl.when(w == 0)
-    def _():
-        acch_ref[:] = jnp.zeros_like(acch_ref)
-        acce_ref[:] = jnp.zeros_like(acce_ref)
-
-    vh, vl = vh_ref[:], vl_ref[:]
-    xh, xl = xh_ref[:], xl_ref[:]
-    p = vh * xh
-    ah, al = _split(vh)
-    bh, bl = _split(xh)
-    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
-    e = e + (vh * xl + (vl * xh + vl * xl))
-    while p.shape[1] > 1:
-        half = p.shape[1] // 2
-        a, b = p[:, :half], p[:, half:]
-        s = a + b
-        bb = s - a
-        err = (a - (s - bb)) + (b - bb)
-        e = e[:, :half] + e[:, half:] + err
-        p = s
-    cur = acch_ref[:]
-    s = cur + p
-    bb = s - cur
-    err = (cur - (s - bb)) + (p - bb)
-    acch_ref[:] = s
-    acce_ref[:] = acce_ref[:] + e + err
-
-    @pl.when(w == nw - 1)
-    def _():
-        out_ref[:, 0:1] = acch_ref[:]
-        out_ref[:, 1:2] = acce_ref[:]
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _ell_rowsum64(vh, vl, xh, xl, interpret=False):
-    mp, width = vh.shape
-    grid = (pl.cdiv(mp, TILE_M), pl.cdiv(width, TILE_W))
-    spec = pl.BlockSpec((TILE_M, TILE_W), lambda i, w: (i, w))
-    hi_err = pl.pallas_call(
-        _rowsum_kernel64,
-        grid=grid,
-        in_specs=[spec, spec, spec, spec],
-        out_specs=pl.BlockSpec((TILE_M, 2), lambda i, w: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((mp, 2), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((TILE_M, 1), jnp.float32),
-                        pltpu.VMEM((TILE_M, 1), jnp.float32)],
-        interpret=interpret,
-    )(vh, vl, xh, xl)
-    return hi_err[:, 0].astype(jnp.float64) + hi_err[:, 1].astype(jnp.float64)
-
-
-def ell_rowsum_pallas_f64(ell_vals64, xg64, interpret=None):
-    """(m_pad, width) f64 row sums via the compensated two-f32 kernel."""
-    vh = ell_vals64.astype(jnp.float32)
-    vl = (ell_vals64 - vh.astype(jnp.float64)).astype(jnp.float32)
-    xh = xg64.astype(jnp.float32)
-    xl = (xg64 - xh.astype(jnp.float64)).astype(jnp.float32)
-    if interpret is None:
-        interpret = _interpret()
-    return _ell_rowsum64(vh, vl, xh, xl, interpret=interpret)
+def vector_row_ax(csr, x, y, alpha, beta, lanes: int, tile: int):
+    """``alpha*A@x + beta*y`` for CSR ``A``: ``lanes`` per row (a power of two),
+    ``tile`` elements per program step (``tile // lanes`` rows per program)."""
+    if csr.nnz == 0:
+        return axpby_finish(alpha, beta, jnp.zeros((csr.rows,), csr.values.dtype), y)
+    return _vector_row_call(alpha, beta, csr.row_ptr, csr.col_idx, csr.values, x, y,
+                            lanes=lanes, tile=tile, interpret=pallas_interpret())
 
 
 def spmv_vector_row(alpha, beta, csr, x, y, plan):
-    """Full strategy: ELL-ify (cached), XLA-gather x, Pallas row-tile reduce.
-    f64 on TPU runs the compensated two-f32 kernel (accuracy ~1e-13 rel, same
-    scheme the flagship swell kernel validates on hardware) — the zoo member
-    stays a real TPU kernel in the bench dtype instead of rerouting to XLA."""
-    from ..dispatch import _get_ell
-
-    ell = _get_ell(csr, plan.tune)
-    dtype = ell.values.dtype
-    if dtype == jnp.float64 and jax.default_backend() == "tpu":
-        xg = x.astype(jnp.float64)[ell.col_idx]
-        ax = ell_rowsum_pallas_f64(ell.values, xg)[: csr.rows]
-        return axpby_finish(alpha, beta, ax, y)
-    xg = x.astype(dtype)[ell.col_idx]
-    ax = ell_rowsum_pallas(ell.values, xg)[: csr.rows]
-    return axpby_finish(alpha, beta, ax, y)
+    """Strategy entry: lanes from the plan's avg nnz/row, tile ``TILE``."""
+    lanes = lanes_for(plan.stats.avg_nnz_per_row)
+    return vector_row_ax(csr, x, y, alpha, beta, lanes, TILE)

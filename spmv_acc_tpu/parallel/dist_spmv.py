@@ -1,8 +1,8 @@
-"""Distributed SpMV over a device mesh via ``shard_map`` + ICI collectives.
+"""Distributed SpMV over a device mesh via ``shard_map`` + collectives.
 
 Row blocks of A live on different devices (``PartitionedCSR``); x is sharded the
-same way.  Each step all-gathers x over the mesh axis (rides ICI) and computes the
-local row-block product.  This is the correctness-first variant SURVEY.md §7.2 calls
+same way.  Each step all-gathers x over the mesh axis and computes the local
+row-block product.  This is the correctness-first variant SURVEY.md §7.2 calls
 for; the halo-exchange optimisation (ppermute of only the needed x segments,
 overlapped with local compute) keys on column-range analysis and lands on top of the
 same partition layout.
@@ -60,7 +60,7 @@ def _local_spmv(values, col_idx, row_ids, x_full, local_rows):
 def dist_spmv_fn(mesh: Mesh, part: PartitionedCSR, axis: str = "x"):
     """Build the jitted distributed SpMV: (part_arrays, x_sharded) -> y_sharded.
 
-    x enters sharded as (D * x_pad,) rows; internally all-gathered over ICI.
+    x enters sharded as (D * x_pad,) rows; internally all-gathered over the mesh axis.
     """
     local_rows = part.local_rows
     m, n = part.global_shape
@@ -110,7 +110,7 @@ def halo_feasible(part: PartitionedCSR) -> bool:
 def dist_spmv_halo_fn(mesh: Mesh, part: PartitionedCSR, axis: str = "x"):
     """Build the 1-hop HALO-EXCHANGE distributed SpMV (SURVEY.md §7's target
     design): instead of all-gathering x, each shard ppermutes only its two
-    neighbor x blocks over ICI and gathers from the 3-block window.  Collective
+    neighbor x blocks and gathers from the 3-block window.  Collective
     volume per step drops from O(n) to O(3 n / D) per device, which is what the
     ≥75% weak-scaling target needs; requires :func:`halo_feasible`."""
     local_rows = part.local_rows

@@ -1,29 +1,28 @@
-"""Multi-host (multi-process) initialization + hybrid DCN x ICI meshes.
+"""Multi-host (multi-process) initialization + two-level (hosts x devices) meshes.
 
 New scope vs the single-node reference (its distribution story is one process
 per GPU under MPI-style launchers; examples/large-data-set-batch.sh drives one
-device).  The TPU-native design:
+device).  The design:
 
 * **Process bootstrap** — :func:`init_distributed` wraps
   ``jax.distributed.initialize``: explicit coordinator args for manual
-  launches, auto-detection (SLURM / GKE / TPU pod metadata) otherwise, and a
-  clean single-process fallback so every code path runs unchanged on one host.
+  launches, auto-detection (SLURM or an exported coordinator address)
+  otherwise, and a clean single-process fallback so every code path runs
+  unchanged on one host.
 * **Hybrid mesh** — :func:`hybrid_mesh` builds a 2-D ``Mesh`` whose OUTER axis
-  spans hosts (``dcn`` — data-center network, ~25 GB/s) and INNER axis spans
-  each host's chips (``ici`` — inter-chip interconnect, ~100s GB/s).  Devices
+  spans hosts (``dcn`` — the network between nodes) and INNER axis spans each
+  host's devices (``ici`` — the in-node links, NVLink on a GPU node).  Devices
   are arranged process-major, so the ``ici`` axis never crosses a host
   boundary (the layout contract ``jax.experimental.mesh_utils.
   create_hybrid_device_mesh`` encodes for nd meshes).
 * **Staged collectives** — :func:`dist_spmv_hier_fn` row-partitions A over the
   flattened (dcn, ici) grid and gathers x in TWO stages: ``all_gather`` over
-  ``ici`` first (cheap, within-host), then over ``dcn`` — cross-host traffic
-  happens once per HOST block rather than once per chip, the collective
-  shape the DCN/ICI bandwidth hierarchy wants (scaling-book recipe).
+  ``ici`` first (within-host), then over ``dcn`` — cross-host traffic happens
+  once per HOST block rather than once per device.
 
-Single-chip hardware here: the multi-process path is exercised structurally
-(single-process context, 2x4 virtual-device hybrid mesh in the dryrun gate and
-tests); the ``jax.distributed`` call itself is hardware-blocked but is the
-standard entry and carries no untested logic beyond argument plumbing.
+The multi-process path is exercised structurally here (single-process context,
+virtual-device hybrid meshes in the tests); the ``jax.distributed`` call itself
+is the standard entry and carries no logic beyond argument plumbing.
 """
 
 from __future__ import annotations
@@ -38,7 +37,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from .dist_swell import shard_map  # version-compat wrapper (check_rep/check_vma)
+from ._compat import shard_map
 from .partition import PartitionedCSR
 
 __all__ = ["DistContext", "init_distributed", "hybrid_mesh",
@@ -46,8 +45,7 @@ __all__ = ["DistContext", "init_distributed", "hybrid_mesh",
 
 # env vars whose presence signals a managed multi-process launch that
 # jax.distributed.initialize() can auto-configure from
-_CLUSTER_ENVS = ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS",
-                 "SLURM_JOB_ID", "TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS")
+_CLUSTER_ENVS = ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS", "SLURM_JOB_ID")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +68,8 @@ def init_distributed(
     """Bootstrap multi-process JAX.
 
     With explicit arguments (manual launch) or a managed-cluster environment
-    (SLURM / GKE / TPU pod), calls ``jax.distributed.initialize``; otherwise
+    (SLURM or an exported coordinator address), calls
+    ``jax.distributed.initialize``; otherwise
     this is a no-op returning the single-process context, so code written
     against it runs identically on one host."""
     explicit = coordinator_address is not None or process_id is not None
@@ -90,8 +89,7 @@ def init_distributed(
             jax.distributed.initialize(**kwargs)
             did_init = True
         except (ValueError, RuntimeError):
-            # a cluster-looking env without a resolvable coordinator (e.g. a
-            # bare TPU_WORKER_HOSTNAMES on a single-host tunnel): explicit
+            # a cluster-looking env without a resolvable coordinator: explicit
             # launches must fail loudly, auto-detection degrades to one process
             if explicit:
                 raise
@@ -110,8 +108,8 @@ def hybrid_mesh(
     axis_names: tuple = ("dcn", "ici"),
     devices=None,
 ) -> Mesh:
-    """2-D (hosts x chips-per-host) mesh, process-major so the inner axis rides
-    ICI and never crosses hosts.  On a single process any (dcn, ici) factoring
+    """2-D (hosts x devices-per-host) mesh, process-major so the inner axis
+    never crosses hosts.  On a single process any (dcn, ici) factoring
     of the device count is accepted — used by the tests/dryrun to validate the
     hybrid collectives on a virtual CPU mesh."""
     devs = list(devices) if devices is not None else jax.devices()
@@ -131,7 +129,7 @@ def hybrid_mesh(
 
 def shard_partitioned_hier(part: PartitionedCSR, mesh: Mesh) -> PartitionedCSR:
     """Place each shard's slab on its device of the flattened (dcn, ici) grid —
-    shard s lives on host s // ici, chip s % ici (row-partition order matches
+    shard s lives on host s // ici, device s % ici (row-partition order matches
     the mesh's process-major layout, so neighboring shards share a host)."""
     sh = NamedSharding(mesh, P(mesh.axis_names))
 
@@ -153,9 +151,8 @@ def shard_partitioned_hier(part: PartitionedCSR, mesh: Mesh) -> PartitionedCSR:
 
 def dist_spmv_hier_fn(mesh: Mesh, part: PartitionedCSR):
     """Distributed SpMV over the hybrid mesh with the TWO-STAGE x gather:
-    ``all_gather`` over ici (within-host, cheap), then over dcn (one block per
-    HOST crosses the slow network).  Equivalent in result to the flat
-    all-gather; the staging is the DCN/ICI-aware collective layout."""
+    ``all_gather`` over ici (within-host), then over dcn (one block per HOST
+    crosses the network).  Equivalent in result to the flat all-gather."""
     local_rows = part.local_rows
     m, n = part.global_shape
     D = part.num_shards

@@ -3,7 +3,7 @@
 The reference is strictly single-device (``hipSetDevice(0)``, cli/main.cpp:89); this
 is the new-scope distribution layer demanded by BASELINE.json: contiguous row blocks
 per shard (each shard's nnz padded to the global max so shapes are uniform), with x
-column-sharded the same way.  Collectives ride ICI inside ``shard_map``
+column-sharded the same way.  Collectives run inside ``shard_map``
 (:mod:`spmv_acc_tpu.parallel.dist_spmv`).
 """
 
@@ -69,7 +69,7 @@ def partition_rows(csr: CSR, num_shards: int, balance: bool = True) -> Partition
         step = -(-m // num_shards)
         cuts = np.minimum(np.arange(num_shards + 1) * step, m)
     local_rows = int(max(np.diff(cuts).max(), 1))
-    # round local rows up to a sublane multiple for clean tiling
+    # round local rows up to a multiple of 8 for clean tiling
     local_rows = -(-local_rows // 8) * 8
     shard_nnz = rp[cuts[1:]] - rp[cuts[:-1]]
     nnz_pad = int(max(shard_nnz.max(), 1))

@@ -1,13 +1,14 @@
-"""Weak-scaling benchmark for distributed SpMV / CG (BASELINE.json config 5).
+"""Weak-scaling benchmark for distributed SpMV (BASELINE.json config 5).
 
 Weak scaling: per-device problem size is fixed; the matrix grows with the device
 count.  Reports nnz/s per device count and parallel efficiency vs 1 device.  Runs on
-whatever mesh is available: real multi-chip hardware when present, otherwise the
-virtual CPU mesh (``--xla_force_host_platform_device_count``), which validates the
-sharding/collective structure (compile + execute) even though CPU timings are not
-TPU projections.
+whatever mesh is available: several GPUs of one host, or the virtual CPU mesh
+(``--xla_force_host_platform_device_count``), which validates the
+sharding/collective structure (compile + execute) but whose timings say nothing
+about a device: every virtual device shares the host's cores, so ``efficiency``
+trends to 1/D there by construction.
 
-Usage: python -m spmv_acc_tpu.parallel.scaling_bench [--devices 1,2,4,8]
+Usage: python -m spmv_acc_tpu.parallel.scaling_bench [--devices 1,2,4]
 """
 
 from __future__ import annotations
@@ -19,92 +20,20 @@ import sys
 import numpy as np
 
 
-# Chip parameters for the modeled-ICI bridge (public "How to Scale Your Model"
-# numbers; BASELINE's >=75% target names a v5p slice, the bench chip is v5e).
-# ICI figures are per link per direction; the 1-hop halo exchange runs the two
-# directional sends on different links of the torus axis concurrently.
-_CHIPS = {
-    "v5p": dict(hbm_gbs=2765.0, ici_gbs=90.0),
-    "v5e": dict(hbm_gbs=819.0, ici_gbs=45.0),
-}
-
-
-def model_ici_efficiency(dsp, csr, achieved_roofline=0.26):
-    """Per-shard modeled ICI record: halo bytes exchanged vs local compute
-    bytes, and the implied weak-scaling efficiency on real hardware.
-
-    The CPU-mesh 'structural_efficiency' gate proves distribution adds no
-    structural overhead, but it cannot argue BASELINE's >=75% target on a real
-    slice (one host serializes compute).  This model bridges the gap with
-    arithmetic: per device, T_comp = local_bytes / (rf * HBM) with rf the
-    ACHIEVED single-chip roofline fraction on this matrix family (banded
-    bw~17 measures ~0.26, PERF_NOTES), T_ici = directional halo volume / link
-    bandwidth (1-hop halo: one x block each way on separate links; all-gather:
-    a (D-1)-step ring over both directions), and
-    modeled_efficiency = T_comp / (T_comp + T_ici) — conservative: assumes NO
-    compute/collective overlap.  Reference frame: SURVEY §5 'Distributed
-    communication backend' (new scope; the reference is single-GPU)."""
-    D = dsp.num_shards
-    L = dsp.rows_local
-    isz = np.dtype(dsp.dtype).itemsize
-    rp = np.asarray(csr.row_ptr)
-    bounds = np.minimum(np.arange(D + 1) * L, csr.rows)
-    nnz_d = np.diff(rp[bounds]).astype(np.int64)
-    # reference bytes model per shard (statistics_logger.cpp:43)
-    local_bytes = isz * (2 * L + nnz_d) + 4 * (L + 1 + nnz_d)
-    if dsp.halo_ok:
-        halo_dir_bytes = L * isz  # one block per direction, concurrent links
-    else:
-        halo_dir_bytes = (D - 1) * L * isz / 2  # ring all-gather, both dirs
-    rec = dict(
-        halo_on=bool(dsp.halo_ok),
-        tail_nnz=int(dsp.tail[0].shape[0] and int((np.asarray(dsp.tail[0]) < L).sum())),
-        halo_dir_bytes_per_dev=int(halo_dir_bytes),
-        local_bytes_per_dev_max=int(local_bytes.max()),
-        achieved_roofline=achieved_roofline,
-    )
-    for chip, c in _CHIPS.items():
-        t_comp = float(local_bytes.max()) / (achieved_roofline * c["hbm_gbs"] * 1e9)
-        t_ici = float(halo_dir_bytes) / (c["ici_gbs"] * 1e9)
-        rec[f"t_comp_us_{chip}"] = round(t_comp * 1e6, 2)
-        rec[f"t_ici_us_{chip}"] = round(t_ici * 1e6, 2)
-        rec[f"modeled_efficiency_{chip}"] = round(t_comp / (t_comp + t_ici), 4)
-    return rec
-
-
 def run_weak_scaling(device_counts, rows_per_device=32768, avg_nnz=16, iters=20,
-                     dtype=None, engine="swell"):
-    """``engine='swell'`` (default): the flagship kernels as local compute
-    (parallel/dist_swell.py, auto 1-hop halo) — rows_per_device >= 32768 so
-    shard blocks span whole x chunks and the halo window fits.
-    ``engine='gather'``: XLA gather/segment-sum local compute (halo when
-    feasible).  ``dtype=None`` follows ``jax_enable_x64`` (f64 when on, f32
-    otherwise) so driver environments without x64 don't trip the containers'
-    silent-downcast guard.
-
-    Efficiency metrics: ``efficiency`` is true weak-scaling parallel efficiency
-    (per-device rate vs D=1) — meaningful ONLY on real multi-chip hardware.  On
-    a virtual CPU mesh every "device" shares one host, so compute serializes
-    and this metric trends to 1/D by construction.  The structural gate there
-    is ``structural_efficiency`` = T_serial(D, m_D)/T_dist(D, m_D): the SAME
-    stacked per-shard plan run shard-by-shard on one device
-    (dist_swell_serial_fn — identical kernel shapes and step slices) vs run
-    distributed — near 1.0 iff distribution (halo exchange, collectives,
-    sharding) adds no overhead beyond the serialized compute.  (A separately
-    planned global single-device run is NOT comparable: the packing's
-    depth-bucket mix changes with matrix size, e.g. banded-17 steps jump
-    24 -> 160 between m=262144 and m=524288 while fill IMPROVES 0.833 -> 0.9 —
-    the broken SCALING_r03 baseline read 4.69.)"""
+                     dtype=None):
+    """Time the distributed SpMV on a banded matrix of ``rows_per_device * D``
+    rows for each device count D (halo exchange when the partition allows it,
+    else all-gather).  ``dtype=None`` follows ``jax_enable_x64`` (f64 when on,
+    f32 otherwise)."""
     import jax
     import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
 
     from ..formats.generate import banded_csr
-    from ..formats.containers import CSR
-    from ..formats.convert import coo_to_csr_arrays, csr_to_dense
-    from ..parallel import make_mesh, partition_rows, shard_partitioned, pad_vector
-    from ..models.cg import dist_cg_solve
+    from ..utils.timer import time_device_loop
+    from . import make_mesh, partition_rows, shard_partitioned
     from .dist_spmv import dist_spmv_fn, dist_spmv_halo_fn, halo_feasible
-    from jax.sharding import NamedSharding, PartitionSpec as P
 
     if dtype is None:
         dtype = np.float64 if jax.config.jax_enable_x64 else np.float32
@@ -117,128 +46,52 @@ def run_weak_scaling(device_counts, rows_per_device=32768, avg_nnz=16, iters=20,
         m = rows_per_device * d
         csr = banded_csr(m, bandwidth=min(avg_nnz | 1, m), seed=11, dtype=dtype)
         mesh = make_mesh(d)
-        if engine == "swell":
-            from .dist_swell import build_dist_swell, dist_swell_spmv_fn, pad_global
+        part = shard_partitioned(partition_rows(csr, d, balance=False), mesh)
+        halo = halo_feasible(part)
+        run, x_pad = (dist_spmv_halo_fn if halo else dist_spmv_fn)(mesh, part)
+        x = jnp.zeros((d * x_pad,), dtype=csr.values.dtype)
+        x = jax.device_put(x.at[: csr.cols].set(1.0), NamedSharding(mesh, P("x")))
 
-            dsp = build_dist_swell(csr, d)
-            run_sw = dist_swell_spmv_fn(dsp, mesh)
-            print(f"D={d}: swell engine halo={'on' if dsp.halo_ok else 'off'} "
-                  f"win_chunks={dsp.win_chunks}", file=sys.stderr)
-            x = jax.device_put(
-                pad_global(dsp, jnp.ones((csr.cols,), dtype=csr.values.dtype)),
-                NamedSharding(mesh, P("x")))
+        def step(x):
+            y = run(part.values, part.col_idx, part.row_ids, x)
+            # renormalised feedback keeps the chain honest without divergence
+            flat = y.reshape(-1)[: d * x_pad]
+            return flat * (1.0 / jnp.maximum(jnp.max(jnp.abs(flat)), 1e-30))
 
-            def step(x):
-                y = run_sw(x)
-                return y * (1.0 / jnp.maximum(jnp.max(jnp.abs(y)), 1e-30))
-
-        else:
-            part = partition_rows(csr, d, balance=False)
-            part = shard_partitioned(part, mesh)
-            build = dist_spmv_halo_fn if halo_feasible(part) else dist_spmv_fn
-            run, x_pad = build(mesh, part)
-            x = jnp.zeros((d * x_pad,), dtype=csr.values.dtype)
-            x = jax.device_put(x.at[: csr.cols].set(1.0), NamedSharding(mesh, P("x")))
-
-            def step(x):
-                y = run(part.values, part.col_idx, part.row_ids, x)
-                # renormalised feedback keeps the chain honest without divergence
-                flat = y.reshape(-1)[: d * x_pad]
-                return flat * (1.0 / jnp.maximum(jnp.max(jnp.abs(flat)), 1e-30))
-
-        # ONE on-device fori_loop program (CG-loop shape): eager per-iteration
-        # dispatch chains one rendezvous per program on the virtual CPU mesh
-        # and the in-process communicator's hard 40s terminate timeout kills
-        # D=8 runs (measured 2026-08-19); the device loop keeps the mesh
-        # threads in lockstep inside a single executable
-        from ..utils.timer import time_device_loop
-
+        # ONE on-device fori_loop program (CG-loop shape): the mesh runs one
+        # executable per measurement instead of one rendezvous per iteration
         per_us, _ = time_device_loop(step, x, iters=iters)
-        # structural baseline: the SAME stacked per-shard plan, serialized on
-        # one device (identical kernel shapes; no collectives/sharding)
-        single_us = None
-        if engine == "swell" and jax.default_backend() != "tpu":
-            from .dist_swell import dist_swell_serial_fn
-
-            run_ser = dist_swell_serial_fn(dsp)
-            # the baseline must COMPUTE THE SAME THING (lesson: a broken A/B
-            # arm that XLA DCEs reads absurdly fast) — cross-check once
-            y_ser = np.asarray(run_ser(jax.device_get(x)))
-            y_dist = np.asarray(run_sw(x))
-            np.testing.assert_allclose(y_ser, y_dist, rtol=1e-6, atol=1e-12,
-                                       err_msg="serial baseline != dist output")
-
-            def step1(v):
-                y = run_ser(v)
-                return y * (1.0 / jnp.maximum(jnp.max(jnp.abs(y)), 1e-30))
-
-            v0 = jnp.ones((dsp.padded_len,), dtype=csr.values.dtype)
-            single_us, _ = time_device_loop(step1, v0, iters=iters)
         rate = csr.nnz / (per_us * 1e-6) if per_us > 0 else 0.0
         per_dev = rate / d
         if base_rate is None:
             base_rate = per_dev
         eff = per_dev / base_rate if base_rate else 0.0
-        row = dict(devices=d, rows=m, nnz=csr.nnz, us_per_spmv=round(per_us, 1),
-                   nnz_per_s=round(rate), efficiency=round(eff, 4))
-        if engine == "swell" and d > 1:
-            # modeled ICI bridge (halo bytes vs compute bytes at real chip
-            # bandwidths) — the argument from the CPU-mesh structural gate to
-            # BASELINE's >=75% real-slice target
-            row["modeled_ici"] = model_ici_efficiency(dsp, csr)
-        msg = (f"D={d}: m={m} nnz={csr.nnz} {per_us:.0f}us/spmv "
-               f"{rate/1e6:.1f}M nnz/s eff={eff:.2%}")
-        if single_us is not None and per_us > 0:
-            st_eff = single_us / per_us
-            row["single_device_us"] = round(single_us, 1)
-            row["structural_efficiency"] = round(st_eff, 4)
-            msg += f" struct_eff={st_eff:.2%}"
-        results.append(row)
-        print(msg, file=sys.stderr)
+        results.append(dict(devices=d, rows=m, nnz=csr.nnz, halo=halo,
+                            us_per_spmv=per_us, nnz_per_s=rate, efficiency=eff))
+        print(f"D={d}: m={m} nnz={csr.nnz} halo={halo} {per_us:.1f}us/spmv "
+              f"{rate/1e6:.1f}M nnz/s eff={eff:.2%}", file=sys.stderr)
     return results
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="scaling-bench")
-    p.add_argument("--devices", default="1,2,4,8")
+    p.add_argument("--devices", default="1,2,4")
     p.add_argument("--rows-per-device", type=int, default=32768)
     p.add_argument("--avg-nnz", type=int, default=16)
     p.add_argument("--iters", type=int, default=20)
-    p.add_argument("--engine", choices=("gather", "swell"), default="swell")
-    p.add_argument("--out", default=None, help="also write the JSON artifact here")
+    p.add_argument("--out", default=None, help="also write the JSON record here")
     args = p.parse_args(argv)
-    counts = [int(c) for c in args.devices.split(",")]
-    results = run_weak_scaling(counts, args.rows_per_device, args.avg_nnz, args.iters,
-                               engine=args.engine)
     import jax
 
-    doc = {
-        "weak_scaling": results,
-        "engine": args.engine,
-        "backend": jax.default_backend(),
-        "structural_only": jax.default_backend() != "tpu",
-        "note": ("virtual CPU mesh serializes device compute on one host: "
-                 "'efficiency' trends to 1/D by construction there; "
-                 "'structural_efficiency' (the SAME stacked per-shard plan "
-                 "serialized on one device vs distributed, dist_swell_serial_fn) "
-                 "is the structural gate — ~1.0 iff distribution adds no "
-                 "overhead; readings slightly >1 mean the mesh overlapped "
-                 "host work the serial program runs back-to-back; "
-                 "'modeled_ici' bridges to real hardware: halo bytes vs local "
-                 "compute bytes at published v5p/v5e HBM+ICI bandwidths and "
-                 "the achieved single-chip roofline, assuming NO overlap "
-                 "(conservative) — see model_ici_efficiency"),
-    }
+    counts = [int(c) for c in args.devices.split(",")]
+    results = run_weak_scaling(counts, args.rows_per_device, args.avg_nnz, args.iters)
+    dev = jax.devices()[0]
+    doc = {"weak_scaling": results, "platform": dev.platform,
+           "device_kind": dev.device_kind, "device_count": len(jax.devices())}
     print(json.dumps(doc))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(doc, f, indent=1)
-    if len(results) >= 2:
-        if jax.default_backend() == "tpu":
-            return 0 if results[-1]["efficiency"] >= 0.75 else 1
-        gate = [r.get("structural_efficiency") for r in results
-                if r.get("structural_efficiency") is not None]
-        return 0 if (gate and min(gate) >= 0.75) else 1
     return 0
 
 

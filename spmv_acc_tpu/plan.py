@@ -7,7 +7,7 @@ m/4..m (hip-adaptive/adaptive.cpp:24-31), flat precomputes per-chunk ``break_poi
 ``break_points`` + ``first_process_block_of_row`` with a long-row flag
 (hip-csr-adaptive-plus/csr_adaptive_plus_analyze.cpp:12-98).
 
-On TPU this becomes a single O(m) numpy scan producing a :class:`Plan` of device
+Here this becomes a single O(m) numpy scan producing a :class:`Plan` of device
 arrays, cached per (matrix, tuning) so repeated SpMV (e.g. a CG loop) amortises it —
 the economics the reference profiles via its pre/calc/destroy phases
 (src/acc/api/handle.h:8-13).
@@ -41,7 +41,7 @@ class RowStats:
     empty_rows: int
     # nnz in each quarter of the row range (reference samples row_ptr at m/4..m)
     quarter_nnz: Tuple[int, int, int, int]
-    # std/avg of row lengths — TPU addition for picking bucketed strategies
+    # std/avg of row lengths — an addition for picking padded strategies
     row_len_cv: float
 
     @property
@@ -81,10 +81,9 @@ def _row_stats(row_ptr: np.ndarray, cols: int) -> RowStats:
 class Plan:
     """Device-side analysis arrays shared by the strategy zoo.
 
-    ``row_ids`` plays the role the implicit row loop plays on GPU; ``chunk_first_row``
-    is the flat strategy's break_points array (flat_imp.inl:107-131);
-    ``row_starts_in_chunk`` marks whether a chunk begins exactly at a row boundary
-    (used by the Pallas flat kernel's carry logic).
+    ``row_ids`` plays the role the implicit row loop plays in the reference's
+    kernels; ``chunk_first_row`` is the flat strategy's break_points array
+    (flat_imp.inl:107-131).
     """
 
     stats: RowStats
@@ -97,9 +96,6 @@ class Plan:
     # (num_chunks + 1,) int32: first row touched by each chunk (flat break_points)
     chunk_first_row: jax.Array
     tune: TuneConfig
-
-    def as_scalar_prefetch(self):
-        return (self.chunk_first_row,)
 
 
 def analyze(csr: CSR, tune: TuneConfig = DEFAULT_TUNE) -> Plan:

@@ -2,7 +2,7 @@
 (SURVEY.md §5): wall timers (cli/timer.h), device event timers
 (benchmark/utils/timer_utils.h), and per-phase API profiling (SpMVAccHanele).
 
-TPU equivalents: ``jax.profiler`` traces (viewable in TensorBoard/XProf),
+Equivalents here: ``jax.profiler`` traces (viewable in TensorBoard/XProf),
 phase-scoped wall timers, and a bandwidth/roofline readout mirroring the ad-hoc
 macros in src/acc/common/mem_bandwidth.hpp:19-38.
 """
@@ -21,26 +21,16 @@ __all__ = ["trace", "PhaseTimer", "bandwidth_report"]
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/spmv_trace"):
-    """Capture a jax.profiler trace around a code region.
+def trace(log_dir: str):
+    """Capture a jax.profiler trace of the device work in a code region.
 
-    View with: ``tensorboard --logdir <log_dir>`` (or xprof).  Falls back to a
-    no-op when the profiler cannot start (e.g. unsupported tunneled platforms).
-    """
-    started = False
-    try:
-        jax.profiler.start_trace(log_dir)
-        started = True
-    except Exception:
-        pass
+    View with: ``tensorboard --logdir <log_dir>`` (or xprof).  A profiler
+    that cannot start raises; nothing is silently skipped."""
+    jax.profiler.start_trace(log_dir)
     try:
         yield
     finally:
-        if started:
-            try:
-                jax.profiler.stop_trace()
-            except Exception:
-                pass
+        jax.profiler.stop_trace()
 
 
 class PhaseTimer:
@@ -64,7 +54,7 @@ class PhaseTimer:
 
 
 def bandwidth_report(rows: int, nnz: int, time_us: float, value_bytes: int = 8, peak_gbs: Optional[float] = None) -> str:
-    """The mem_bandwidth.hpp:19-38 printout, TPU-flavored."""
+    """The mem_bandwidth.hpp:19-38 printout, against the device's published peak."""
     peak = peak_gbs or chip_peak_gbs()
     b = bytes_moved(rows, nnz, value_bytes)
     gbs = b / (time_us * 1e-6) / 1e9 if time_us > 0 else 0.0

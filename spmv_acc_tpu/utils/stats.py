@@ -5,8 +5,8 @@ Column order and formulas reproduce benchmark/utils/statistics_logger.cpp:11-57:
 GB/s(total),GFLOPS(total),pre,calc,fixup,destroy,total,first_failed_at,failed_count,
 max_error`` with times in microseconds,
 ``bytes = sizeof(T)*(2m+nnz) + sizeof(int)*(m+1+nnz)`` (statistics_logger.cpp:43) and
-``flops = 2*nnz`` (…:46,49).  New for TPU: roofline fraction vs the chip's HBM
-speed-of-light using the same bytes model.
+``flops = 2*nnz`` (…:46,49).  New here: roofline fraction vs the device's published
+memory bandwidth, using the same bytes model.
 """
 
 from __future__ import annotations
@@ -21,6 +21,8 @@ __all__ = [
     "flops",
     "roofline_fraction",
     "chip_peak_gbs",
+    "chip_peaks",
+    "PEAKS",
     "print_statistics",
     "BenchTimes",
 ]
@@ -31,22 +33,29 @@ CSV_HEADER = (
     "first_failed_at,failed_count,max_error"
 )
 
-# Peak HBM bandwidth per chip (GB/s). v5e ("v5 lite") = 819; v5p = 2765; v4 = 1228.
-_PEAK_GBS = {"v5 lite": 819.0, "v5e": 819.0, "v5p": 2765.0, "v4": 1228.0, "v6e": 1640.0}
+# Published peaks by ``device_kind`` as JAX reports it.  Source: NVIDIA H100
+# Tensor Core GPU datasheet, SXM5 column: 3.35 TB/s HBM3, FP64 34 TFLOP/s,
+# FP64 Tensor Core 67 TFLOP/s (dense).
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"hbm_gbs": 3350.0, "f64_tflops_vector": 34.0,
+                              "f64_tflops_tensor": 67.0},
+}
+
+
+def chip_peaks(device=None) -> dict:
+    """The published peaks of ``device`` (default: the first JAX device).  A
+    device with no entry in :data:`PEAKS` is an error, never a default."""
+    import jax
+
+    kind = (device or jax.devices()[0]).device_kind
+    if kind not in PEAKS:
+        raise KeyError(f"no published peaks for device_kind {kind!r}; "
+                       f"known: {sorted(PEAKS)}")
+    return PEAKS[kind]
 
 
 def chip_peak_gbs(device=None) -> float:
-    try:
-        import jax
-
-        device = device or jax.devices()[0]
-        kind = getattr(device, "device_kind", "").lower()
-        for key, val in _PEAK_GBS.items():
-            if key in kind:
-                return val
-    except Exception:
-        pass
-    return 819.0  # default: v5e
+    return chip_peaks(device)["hbm_gbs"]
 
 
 def bytes_moved(rows: int, nnz: int, value_bytes: int = 8, index_bytes: int = 4) -> int:

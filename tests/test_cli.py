@@ -113,7 +113,7 @@ def test_benchmark_external_engines(csr_file, capsys):
     from spmv_acc_tpu.cli.benchmark import main as bench_main
 
     rc = bench_main([csr_file, "-f", "csr", "--iters", "3", "--warmups", "1",
-                     "--engines", "jax-sparse-bcoo,jax-sparse-bcsr,dense-mxu-anchor"])
+                     "--engines", "jax-sparse-bcoo,jax-sparse-bcsr,dense-anchor"])
     out = capsys.readouterr().out
     assert rc == 0
     lines = [l for l in out.splitlines()

@@ -30,7 +30,7 @@ def _spd_csr(m=40, seed=0):
     return CSR.from_numpy(rp2, ci2, v2, shape)
 
 
-@pytest.mark.parametrize("strategy", ["ell", "segment", "swell", "adaptive"])
+@pytest.mark.parametrize("strategy", ["ell", "segment", "adaptive"])
 def test_spmm_matches_golden(strategy):
     csr = random_csr(60, 50, 600, seed=31)
     rng = np.random.default_rng(5)
@@ -40,38 +40,6 @@ def test_spmm_matches_golden(strategy):
     out = spmm(csr, jnp.asarray(X), jnp.asarray(Y), alpha=1.5, beta=-0.5, strategy=strategy)
     rep = verify_y(np.asarray(out).ravel(), golden.ravel())
     assert rep.ok, rep
-
-
-def test_spmm_swell_multirhs_groups(monkeypatch):
-    """Grouped multi-RHS kernel: k=5 with group 2 exercises zero-padding of the
-    last group and the k>1 x-slice layout (slice s = c*r + j)."""
-    monkeypatch.setenv("SPMV_TPU_SPMM_GROUP", "2")
-    csr = random_csr(60, 50, 600, seed=36)
-    rng = np.random.default_rng(8)
-    X = rng.random((50, 5))
-    Y = rng.random((60, 5))
-    golden = host_spmm(2.0, 0.5, *csr.to_numpy()[:3], X, Y)
-    out = spmm(csr, jnp.asarray(X), jnp.asarray(Y), alpha=2.0, beta=0.5, strategy="swell")
-    rep = verify_y(np.asarray(out).ravel(), golden.ravel())
-    assert rep.ok, rep
-
-
-def test_spmm_swell_bsr_combined(monkeypatch):
-    """BSR micro-block (r=3) x multi-RHS (k=5): the kernel runs r*k x-slices per
-    step with groups of max(1, 8 // r) = 2 columns."""
-    monkeypatch.setenv("SPMV_TPU_BSR", "3")
-    monkeypatch.setenv("SPMV_TPU_NO_PLAN_CACHE", "1")
-    csr = banded_csr(100, bandwidth=4, seed=37)
-    rng = np.random.default_rng(9)
-    X = rng.random((100, 5))
-    Y = rng.random((100, 5))
-    golden = host_spmm(1.0, 0.0, *csr.to_numpy()[:3], X, Y)
-    out = spmm(csr, jnp.asarray(X), jnp.asarray(Y), strategy="swell")
-    rep = verify_y(np.asarray(out).ravel(), golden.ravel())
-    assert rep.ok, rep
-    from spmv_acc_tpu.ops.swell import get_swell_plan
-
-    assert get_swell_plan(csr, np.float64).r == 3
 
 
 def test_bsr_spmv_matches_dense():
@@ -202,33 +170,6 @@ def test_ilu0_host_native_matches_python():
     np.testing.assert_allclose(lu_native, lu_py, rtol=1e-13)
 
 
-def test_ilu0_swell_backed_sweeps_match_gather_path(monkeypatch):
-    """The SweepSwell backing (N@y on the flagship kernel) reproduces the XLA
-    gather trisolve_sweeps apply; CG with it converges."""
-    from spmv_acc_tpu.ops.trisolve import trisolve_sweeps
-
-    monkeypatch.setenv("SPMV_TPU_ILU_SWELL_MIN", "0")
-    csr = _spd_csr(300, seed=33)
-    fact = ilu0(csr, sweeps=4)
-    assert fact.swell is not None
-    rng = np.random.default_rng(34)
-    r = jnp.asarray(rng.standard_normal(300))
-    z_swell = np.asarray(fact.solve(r))
-    ref = type(fact)(fact.l_plan, fact.u_plan, sweeps=4, swell=None)
-    z_gather = np.asarray(ref.solve(r))
-    np.testing.assert_allclose(z_swell, z_gather, rtol=1e-10, atol=1e-12)
-    # end-to-end: cg_solve plumbs the SweepSwell args through its jit
-    from spmv_acc_tpu.models.cg import cg_solve
-    from spmv_acc_tpu.formats.convert import csr_to_dense
-
-    x_true = rng.standard_normal(300)
-    dense = csr_to_dense(*csr.to_numpy())
-    b = jnp.asarray(dense @ x_true)
-    res = cg_solve(csr, b, tol=1e-10, max_iters=400, strategy="swell", precond=fact)
-    err = np.linalg.norm(np.asarray(res.x) - x_true) / np.linalg.norm(x_true)
-    assert err < 1e-8, (err, int(res.iters))
-
-
 def test_ilu0_preconditioner_solve():
     csr = _spd_csr(30, seed=10)
     fact = ilu0(csr)
@@ -265,16 +206,76 @@ def test_cg_solves_spd():
     assert int(res_p.iters) <= int(res.iters) + 1
 
 
-def test_cg_swell_path_matches_known_solution():
-    """cg_solve(strategy='swell') routes the matvec through swell_ax with plan
-    arrays as jit ARGUMENTS (not trace constants — the HLO-embedding hazard)."""
-    from spmv_acc_tpu.models.cg import cg_solve
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("k", [1, 8, 16, 64])
+@pytest.mark.parametrize("strategy", ["segment", "ell"])
+def test_spmm_forms_over_k(strategy, k, dtype):
+    """The two SpMM forms at the widths block solvers use; f32 on positive
+    data at REL_TOL_F32 (full-precision contraction)."""
+    from spmv_acc_tpu.formats.containers import CSR
 
-    csr = _spd_csr(200, seed=14)
-    rng = np.random.default_rng(15)
-    x_true = rng.standard_normal(200)
-    dense = csr_to_dense(*csr.to_numpy())
-    b = jnp.asarray(dense @ x_true)
-    res = cg_solve(csr, b, tol=1e-10, max_iters=400, strategy="swell")
-    err = np.linalg.norm(np.asarray(res.x) - x_true) / np.linalg.norm(x_true)
-    assert err < 1e-8, (err, int(res.iters))
+    csr = random_csr(90, 70, 900, seed=40 + k)
+    rp, ci, v, shape = csr.to_numpy()
+    rng = np.random.default_rng(k)
+    X, Y = rng.random((70, k)), rng.random((90, k))
+    if dtype == np.float32:
+        csr = CSR.from_numpy(rp, ci, np.abs(v).astype(np.float32), shape)
+        X, Y = X.astype(np.float32), Y.astype(np.float32)
+    golden = host_spmm(1.5, 0.5, *csr.to_numpy()[:3], X, Y)
+    out = spmm(csr, jnp.asarray(X), jnp.asarray(Y), alpha=1.5, beta=0.5, strategy=strategy)
+    assert out.shape == (90, k) and out.dtype == dtype
+    rep = verify_y(np.asarray(out).ravel(), golden.ravel(), dtype=dtype)
+    assert rep.ok, rep
+
+
+def _laplacian_2d(n, eps=1.0):
+    from spmv_acc_tpu.formats.generate import aniso_laplacian_csr
+
+    return aniso_laplacian_csr(n, n, eps)
+
+
+@pytest.mark.parametrize("sweeps", [1, 3, 6])
+def test_ilu0_gather_sweeps_large_factor(sweeps):
+    """Factors above 100k off-diagonal nnz run the gather-form Jacobi sweeps
+    (one XLA gather + segment-sum each): they match a host recomputation of
+    y <- (b - N y) / D on both factors."""
+    from spmv_acc_tpu.ops.trisolve import _W
+
+    csr = _laplacian_2d(180)  # 32,400 rows, 161,280 nnz
+    fact = ilu0(csr, sweeps=sweeps)
+    n_off = (fact.l_plan.dep_rows.shape[0] - _W) + (fact.u_plan.dep_rows.shape[0] - _W)
+    assert n_off > 100_000
+    r = np.random.default_rng(sweeps).standard_normal(csr.rows)
+
+    def host_sweeps(plan, b):
+        n_dep = plan.dep_rows.shape[0] - _W
+        rows = np.asarray(plan.dep_rows)[:n_dep]
+        cols = np.asarray(plan.dep_cols)[:n_dep]
+        vals = np.asarray(plan.dep_vals)[:n_dep]
+        diag = np.asarray(plan.diag)
+        y = b / diag
+        for _ in range(sweeps):
+            s = np.zeros_like(b)
+            np.add.at(s, rows, vals * y[cols])
+            y = (b - s) / diag
+        return y
+
+    golden = host_sweeps(fact.u_plan, host_sweeps(fact.l_plan, r))
+    assert verify_y(np.asarray(fact.solve(jnp.asarray(r))), golden).ok
+
+
+def test_cg_ilu0_large_factor_converges():
+    from spmv_acc_tpu.models.cg import cg_solve, jacobi_preconditioner
+    from spmv_acc_tpu.ops.golden import host_spmv
+
+    csr = _laplacian_2d(120, eps=0.1)
+    rp, ci, v, (m, _) = csr.to_numpy()
+    x_true = np.random.default_rng(3).standard_normal(m)
+    b = jnp.asarray(host_spmv(1.0, 0.0, rp, ci, v, x_true, np.zeros(m)))
+    res_j = cg_solve(csr, b, tol=1e-8, max_iters=2000, precond=jacobi_preconditioner(csr))
+    res_i = cg_solve(csr, b, tol=1e-8, max_iters=2000, precond=ilu0(csr, sweeps=3))
+    for res in (res_j, res_i):
+        xs = np.asarray(res.x)
+        rel = np.linalg.norm(np.asarray(b) - host_spmv(1.0, 0.0, rp, ci, v, xs, np.zeros(m)))
+        assert rel / np.linalg.norm(np.asarray(b)) < 1e-7
+    assert int(res_i.iters) < int(res_j.iters)

@@ -136,68 +136,6 @@ def test_dist_spmv_halo_infeasible_falls_back():
     assert rep.failed_count == 0, rep
 
 
-@pytest.mark.parametrize("num_shards", [2, 4, 8])
-@pytest.mark.slow
-def test_dist_swell_spmv_matches_golden(num_shards):
-    """Flagship-kernel distribution (parallel/dist_swell.py): the global swell
-    plan partitioned by out-windows, swell_ax local compute inside shard_map,
-    vs the CPU golden.  Covers idle-shard padding (nout < num_shards windows)."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from spmv_acc_tpu.formats.generate import fem_like_csr
-    from spmv_acc_tpu.parallel.dist_swell import (
-        build_dist_swell,
-        dist_swell_spmv_fn,
-        pad_global,
-    )
-
-    m = 16384
-    csr = fem_like_csr(m, m, 6 * m, block=3, seed=21, dtype=np.float64)
-    dsp = build_dist_swell(csr, num_shards)
-    mesh = make_mesh(num_shards)
-    run = dist_swell_spmv_fn(dsp, mesh)
-    x, _ = random_x_y(m, m, seed=22, dtype=np.float64)
-    xp = jax.device_put(
-        pad_global(dsp, jnp.asarray(x)), NamedSharding(mesh, P("x"))
-    )
-    y = np.asarray(run(xp))[:m]
-    golden = host_spmv_plain(*csr.to_numpy()[:3], x)
-    rep = verify_y(y, golden, dtype=np.float64)
-    assert rep.failed_count == 0, rep
-
-
-@pytest.mark.slow
-def test_dist_swell_cg_solve():
-    """Mesh CG with swell local compute converges to a known solution."""
-    from spmv_acc_tpu.formats.containers import CSR
-    from spmv_acc_tpu.formats.convert import coo_to_csr_arrays
-    from spmv_acc_tpu.formats.generate import fem_like_csr
-    from spmv_acc_tpu.ops.golden import host_spmv
-    from spmv_acc_tpu.parallel.dist_swell import dist_swell_cg_solve
-
-    m = 8192
-    base = fem_like_csr(m, m, 6 * m, block=3, seed=31, dtype=np.float64)
-    rp, ci, v, _ = base.to_numpy()
-    rr = np.repeat(np.arange(m, dtype=np.int64), np.diff(rp))
-    rr_s = np.concatenate([rr, ci, np.arange(m, dtype=np.int64)])
-    cc_s = np.concatenate([ci, rr, np.arange(m, dtype=np.int64)])
-    diag = np.zeros(m)
-    np.add.at(diag, rr, 0.5 * np.abs(v))
-    np.add.at(diag, ci, 0.5 * np.abs(v))
-    v_s = np.concatenate([0.5 * v, 0.5 * v, diag + 1.0])
-    rp, ci, v = coo_to_csr_arrays(rr_s, cc_s, v_s, (m, m))
-    spd = CSR.from_numpy(rp, ci, v, (m, m))
-
-    rng = np.random.default_rng(32)
-    x_true = rng.uniform(-1, 1, size=m)
-    b = host_spmv(1.0, 0.0, rp, ci, v, x_true, np.zeros(m))
-    mesh = make_mesh(8)
-    res, dsp = dist_swell_cg_solve(spd, jnp.asarray(b), mesh, tol=1e-10, max_iters=300)
-    x = np.asarray(res.x)[:m]
-    assert float(res.residual_norm) <= 1e-10 * max(float(np.linalg.norm(b)), 1.0)
-    assert np.linalg.norm(x - x_true) / np.linalg.norm(x_true) < 1e-7
-
-
 @pytest.mark.parametrize("shape", [(2, 4), (4, 2), (8, 1), (1, 8)])
 def test_hybrid_mesh_spmv_matches_golden(shape):
     """Hybrid DCN x ICI mesh: the two-stage all-gather (ici then dcn) must
@@ -226,33 +164,3 @@ def test_init_distributed_single_process():
     assert not ctx.initialized
     assert ctx.process_count == 1 and ctx.process_index == 0
     assert ctx.global_device_count == 8  # the virtual CPU mesh
-
-
-@pytest.mark.slow
-def test_dist_swell_halo_spmv_matches_golden():
-    """1-hop halo dist-swell: shard x blocks of >= 2 chunks on a banded matrix
-    make the per-shard chunk window fit the 3-block neighborhood, so the build
-    marks halo_ok and dist_swell_spmv_fn auto-selects the ppermute path."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from spmv_acc_tpu.formats.generate import banded_csr
-    from spmv_acc_tpu.parallel.dist_swell import (
-        build_dist_swell,
-        dist_swell_spmv_fn,
-        pad_global,
-    )
-
-    m = 131072  # 8 x-chunks; 4 shards -> 2 chunks per shard block
-    csr = banded_csr(m, bandwidth=4, seed=23, dtype=np.float64)
-    dsp = build_dist_swell(csr, 4)
-    assert dsp.halo_ok, (dsp.chunk_lo, dsp.win_chunks, dsp.rows_local)
-    mesh = make_mesh(4)
-    run = dist_swell_spmv_fn(dsp, mesh)  # auto-selects halo
-    x, _ = random_x_y(m, m, seed=24, dtype=np.float64)
-    xp = jax.device_put(
-        pad_global(dsp, jnp.asarray(x)), NamedSharding(mesh, P("x"))
-    )
-    y = np.asarray(run(xp))[:m]
-    golden = host_spmv_plain(*csr.to_numpy()[:3], x)
-    rep = verify_y(y, golden, dtype=np.float64)
-    assert rep.failed_count == 0, rep

@@ -85,13 +85,12 @@ def test_roofline_fraction_monotone():
 
 
 def test_cache_dir_env_override_and_repo_local(monkeypatch, tmp_path):
-    """cache_dir: env override wins; default is a repo-local .cache/<kind>
-    (persists across driver rounds, unlike /tmp)."""
+    """cache_dir: env override wins; default is the checkout's .cache/<kind>."""
     from spmv_acc_tpu.config import cache_dir
 
-    monkeypatch.setenv("SPMV_TPU_CORPUS_CACHE", str(tmp_path / "c"))
+    monkeypatch.setenv("SPMV_CORPUS_CACHE", str(tmp_path / "c"))
     assert cache_dir("corpus") == str(tmp_path / "c")
-    monkeypatch.delenv("SPMV_TPU_CORPUS_CACHE", raising=False)
+    monkeypatch.delenv("SPMV_CORPUS_CACHE", raising=False)
     d = cache_dir("corpus")
     import os
 
